@@ -1,6 +1,6 @@
 // Native circuit scheduler for rs_tfhe_tpu.
 //
-// The TPU executes homomorphic gates fastest as large same-type batches
+// The device executes homomorphic gates fastest as large same-type batches
 // (one fused blind-rotation kernel call per gate type); a boolean circuit
 // arrives as a netlist of dependent gates. This scheduler turns a netlist
 // into a batched execution plan on the host — the "runtime around the

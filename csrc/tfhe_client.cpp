@@ -1,7 +1,7 @@
 // tfhe_client: native client-side runtime for rs_tfhe_tpu.
 //
-// The TPU framework keeps the server hot path (blind rotation / external
-// products) on the MXU via JAX; this library is the *client* counterpart —
+// The JAX server keeps the hot path (blind rotation / external products)
+// on the accelerator; this library is the *client* counterpart —
 // exact discretized-torus arithmetic for devices that encrypt, decrypt and
 // pre/post-process ciphertexts without a JAX runtime. It fills the role the
 // vendored SPQLIOS C++/assembly core plays in the reference
@@ -199,7 +199,7 @@ void identity_key_switch(const uint32_t *ct_lv1, const uint32_t *ksk,
 // default partitionable PRNG bit-for-bit: per-element counter = (0, idx),
 // output = x1 ^ x2 after 5 x 4 rounds (rs_tfhe_tpu/torus.py
 // threefry2x32_bits_raw, verified cross-runtime in tests/test_native.py).
-// This is the mask stream of SEEDED ciphertexts: the client and the TPU
+// This is the mask stream of SEEDED ciphertexts: the client and the JAX
 // server re-derive identical masks from a 2-word seed.
 // ---------------------------------------------------------------------------
 

@@ -8,18 +8,12 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax")
 
-import jax
-
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
-
-import numpy as np  # noqa: E402
+import jax  # noqa: E402
 
 import rs_tfhe_tpu as tfhe  # noqa: E402
 from rs_tfhe_tpu.key import CloudKey, SecretKey  # noqa: E402
+from rs_tfhe_tpu.utils.cache import enable_compile_cache  # noqa: E402
 
 
 def parse_args(description: str, **extra_flags) -> argparse.Namespace:
@@ -36,12 +30,11 @@ def parse_args(description: str, **extra_flags) -> argparse.Namespace:
         ap.add_argument(f"--{name}", type=type(default), default=default)
     args = ap.parse_args()
     if args.cpu:
+        # no persistent cache on the CPU: XLA:CPU's AOT cache loader can
+        # SIGILL/segfault loading a cached executable (tests/conftest.py)
         jax.config.update("jax_platforms", "cpu")
-        # XLA:CPU's AOT cache loader is unsafe on this class of host (it
-        # warns about +prefer-no-gather and can SIGILL/segfault loading a
-        # cached executable — see tests/conftest.py); the persistent cache
-        # is for the TPU only.
-        jax.config.update("jax_compilation_cache_dir", None)
+    else:
+        enable_compile_cache()
     args.param_set = (
         tfhe.TEST_TINY if args.params == "TEST_TINY" else tfhe.ALL_SECURITY_SETS[args.params]
     )
@@ -58,9 +51,8 @@ def make_keys(params, seed: int = 0):
 
 
 def timed(label: str, fn, *args):
-    """Run fn, force the result to host, report wall time."""
+    """Run fn, wait for the result, report wall time."""
     t0 = time.perf_counter()
-    out = fn(*args)
-    np.asarray(jax.device_get(jax.tree_util.tree_leaves(out)[0]))
+    out = jax.block_until_ready(fn(*args))
     print(f"[{label}] {time.perf_counter() - t0:.3f}s")
     return out

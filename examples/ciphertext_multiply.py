@@ -10,7 +10,7 @@ SECURITY_128_BIT_NIBBLE (~6.5 sigma, p < 1e-9 per PBS).
 
     python examples/ciphertext_multiply.py --cpu                 # 4-bit demo
     python examples/ciphertext_multiply.py --params SECURITY_128_BIT_NIBBLE \
-        --x 40590 --y 27063 --bits 16                            # on TPU
+        --x 40590 --y 27063 --bits 16                            # on a GPU
 """
 
 import jax

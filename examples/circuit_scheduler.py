@@ -46,8 +46,7 @@ def main():
     assert got == (args.x + args.y) % mod
 
     # whole-plan jit: the entire group sequence as ONE device program
-    # (gather/scatter indices static) — 7.8x over per-group dispatch on
-    # v5e for the 32-bit adder (194 ms; BENCH_SUITE.json)
+    # (gather/scatter indices static) instead of one dispatch per group
     run = NL.compile_circuit(ckt, plan)
     _ = run(inputs, ck)  # compile
     wires = timed("whole-plan jit (compile_circuit)", run, inputs, ck)

@@ -1,6 +1,6 @@
 """Deployment round trip with compressed transport: a native C++ client
 encrypts SEEDED ciphertexts (1 word each on the wire instead of n+1 — 701x
-at the 128-bit sets), the JAX/TPU server expands them from the 2-word
+at the 128-bit sets), the JAX server expands them from the 2-word
 threefry seed, evaluates bootstrapped gates, and the client decrypts —
 no JAX on the client side at any point.
 
@@ -46,7 +46,7 @@ def main():
     print(f"wire bytes per batch: {wire} (full masks would be {full}; "
           f"{full / wire:.0f}x)")
 
-    # --- server (JAX/TPU): expand + homomorphic circuit ---
+    # --- server (JAX): expand + homomorphic circuit ---
     ct_a = lwe_expand_seeded(jnp.asarray(seed_a), jnp.asarray(bodies_a), p.n0)
     ct_b = lwe_expand_seeded(jnp.asarray(seed_b), jnp.asarray(bodies_b), p.n0)
     ct_xor = gates.xor(ct_a, ct_b, ck)

@@ -1,6 +1,6 @@
 """Application demo: sorting encrypted integers with a bitonic network —
 data-oblivious by construction (the compare-exchange schedule is static, so
-nothing about the data leaks through control flow), batched TPU-first (every
+nothing about the data leaks through control flow), batched (every
 network stage is ONE comparator dispatch + ONE swap-MUX dispatch over all
 pairs at once). The reference has no sorting capability at all (its
 comparator sketch, src/circuits.rs, is dead code — SURVEY.md §1).

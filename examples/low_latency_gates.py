@@ -5,10 +5,9 @@ its single gate costs ~15 ms. A `CloudKey.generate(..., multibit=True)` key
 additionally stores TRGSW encryptions of the four pair-indicator products
 per PAIR of lv0 secret bits, so one external product advances the blind
 rotation by TWO mask elements; gates auto-route batches <= 2 through the
-half-length chain. Measured on TPU v5e (chain-length slope): 1.72 ms at
-SECURITY_128_BIT_FAST / 2.45 ms at the literal SECURITY_128_BIT set —
-noise-free there (12.7 sigma vs 13.1 standard; FAST mb runs 7.4 sigma,
-p ~ 2e-13/gate — utils.noise.estimate(params, mb_group=2)).
+half-length chain. Noise (utils.noise.estimate(params, mb_group=2)): 12.7
+sigma vs 13.1 standard at SECURITY_128_BIT; FAST mb runs 7.4 sigma,
+p ~ 2e-13/gate. Its latency on the GPU has not been measured yet.
 
     python examples/low_latency_gates.py --cpu                # TEST_TINY
     python examples/low_latency_gates.py --params SECURITY_128_BIT

@@ -1,5 +1,5 @@
 """Multi-chip gate evaluation: data-parallel and tensor-parallel
-(the TPU-native replacement for the reference's Railgun thread-pool examples:
+(the device-mesh replacement for the reference's Railgun thread-pool examples:
 custom_railgun.rs, batch_gates_scaling.rs).
 
 Runs on real chips, or on a virtual CPU mesh:

@@ -1,9 +1,9 @@
-"""rs_tfhe_tpu — a TPU-native TFHE (gate bootstrapping) framework.
+"""rs_tfhe_tpu — a TFHE (gate bootstrapping) framework in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of
-thedonutfactory/rs-tfhe, re-designed batch-first for TPU hardware: the
+Built from scratch in JAX/XLA with the capabilities of
+thedonutfactory/rs-tfhe, re-designed batch-first for accelerators: the
 negacyclic polynomial arithmetic at the heart of the external product runs as
-integer-exact limb matmuls on the MXU, blind rotation is a `lax.scan` whose
+integer-exact int8 limb matmuls, blind rotation is a `lax.scan` whose
 every step processes the whole ciphertext batch, and batches shard across
 device meshes via `shard_map`.
 """

@@ -29,9 +29,7 @@ def bootstrap(ct: jax.Array, ck: CloudKey) -> jax.Array:
     ct: uint32 [..., n0+1] -> uint32 [..., n0+1]. Reference: vanilla.rs:40-52.
     """
     flat, restore = _flat(ct)
-    acc = blind_rotate(flat, ck.testvec, ck.bsk, ck.params,
-                       bsk_packed=ck.bsk_packed, bsk_vecs=ck.bsk_vecs,
-                       bsk_mb=ck.bsk_mb, bsk_mb_vecs=ck.bsk_mb_vecs)
+    acc = blind_rotate(flat, ck.testvec, ck.bsk, ck.params, bsk_mb=ck.bsk_mb)
     lv1 = sample_extract(acc, 0)
     return restore(identity_key_switch(lv1, ck.ksk_limbs, ck.params))
 
@@ -45,9 +43,7 @@ def bootstrap_without_key_switch(ct: jax.Array, ck: CloudKey) -> jax.Array:
     once (see gates.mux).
     """
     flat, restore = _flat(ct)
-    acc = blind_rotate(flat, ck.testvec, ck.bsk, ck.params,
-                       bsk_packed=ck.bsk_packed, bsk_vecs=ck.bsk_vecs,
-                       bsk_mb=ck.bsk_mb, bsk_mb_vecs=ck.bsk_mb_vecs)
+    acc = blind_rotate(flat, ck.testvec, ck.bsk, ck.params, bsk_mb=ck.bsk_mb)
     return restore(sample_extract(acc, 0))
 
 
@@ -77,9 +73,7 @@ def bootstrap_with_testvec(
     if testvec.ndim > 2:
         testvec = testvec.reshape(-1, *testvec.shape[-2:])
     acc = blind_rotate(flat, testvec, ck.bsk, ck.params,
-                       bsk_packed=ck.bsk_packed, bsk_vecs=ck.bsk_vecs,
-                       bsk_mb=ck.bsk_mb if allow_mb else None,
-                       bsk_mb_vecs=ck.bsk_mb_vecs if allow_mb else None)
+                       bsk_mb=ck.bsk_mb if allow_mb else None)
     lv1 = sample_extract(acc, 0)
     return restore(identity_key_switch(lv1, ck.ksk_limbs, ck.params))
 

@@ -1,17 +1,20 @@
 """Global backend configuration.
 
 Environment overrides:
-  RS_TFHE_DOT_IMPL = int8 | bf16     (default int8)
+  RS_TFHE_DOT_IMPL  = int8 | bf16              (default int8)
+  RS_TFHE_STEP_IMPL = auto | xla | nussbaumer  (default auto)
 
-`dot_impl` selects how the exact limb contractions hit the MXU:
-  - "int8": s8 x s8 -> s32 `lax.dot_general` (native on TPU v5+; 2x bf16 rate).
+`dot_impl` selects how the exact limb contractions are issued:
+  - "int8": s8 x s8 -> s32 `lax.dot_general` (int8 tensor cores run at twice
+    the bf16 rate).
   - "bf16": bf16 x bf16 -> f32 with the contraction chunked to <= 1024 so every
-    partial sum stays within float32's exact-integer range (see torus.py).
+    partial sum stays within float32's exact-integer range (see ops/poly.py).
 
-The BSK precompute is `CloudKey.bsk_packed` (the byte-packed limb layout the
-whole-rotation kernel streams); a fully-expanded circulant precompute was
-removed in round 2 — it cannot exist at production scale on 16 GB chips
-(~35 GB at SECURITY_128_BIT) and measured slower than in-VMEM expansion.
+`step_impl` selects the blind-rotation step (ops/blind_rotate.py):
+  - "auto" / "xla": the exact int8 circulant contraction;
+  - "nussbaumer": the Nussbaumer transform path (ops/nussbaumer.py).
+Any other value raises ValueError at the first blind rotation. All paths
+are bit-exact.
 """
 
 from __future__ import annotations
@@ -23,23 +26,6 @@ import os
 @dataclasses.dataclass
 class Config:
     dot_impl: str = os.environ.get("RS_TFHE_DOT_IMPL", "int8")
-    #: blind-rotation implementation:
-    #:   "auto"       — the whole-rotation VMEM kernel whenever eligible
-    #:                  (TPU, N % 128 == 0; shared or per-ciphertext test
-    #:                  vectors, single- or multi-limb digits; batch tiles
-    #:                  auto-sized fb = 8..128), the dot_general circulant
-    #:                  path otherwise (CPU, odd shapes);
-    #:   "xla"        — force the dot_general circulant path;
-    #:   "nussbaumer" — force the Nussbaumer transform path
-    #:                  (ops/nussbaumer.py);
-    #:   "pallas"     — per-step fused kernel (ops/pallas_step.py);
-    #:   "fused"      — whole-rotation kernel with the accumulator resident
-    #:                  in VMEM across all n0 steps (ops/pallas_blind_rotate);
-    #:   "fused_small"— commuted Hankel-operand variant for batch <= 8
-    #:                  latency (digit circulant x BSK vectors; explicit
-    #:                  opt-in until measured faster than the fb=8 tile).
-    #: All alternatives are bit-exact vs the XLA path (each has shape or
-    #: parameter eligibility conditions; ineligible "auto" falls back).
     step_impl: str = os.environ.get("RS_TFHE_STEP_IMPL", "auto")
 
 

@@ -10,7 +10,7 @@ batch-first ciphertext arrays so `x * y + 3` is valid encrypted code.
 
 All types are batch-first like everything else in the framework: encrypting a
 numpy array of values yields one object whose operators run every element (and
-every bit/digit position) through single batched bootstraps on the MXU.
+every bit/digit position) through single batched bootstraps.
 
 Plaintext operands (Python ints/bools, numpy arrays) are coerced to trivial
 (noiseless, maskless) ciphertexts, so mixed expressions like `a & True` or
@@ -216,7 +216,7 @@ class FheUint:
         batched AND for all W partial products, 3:2 compressor levels with
         every group batched into single gate rounds, one final Kogge-Stone
         add — ~4x fewer sequential bootstrap rounds than the schoolbook
-        accumulate it replaced (VERDICT r4 weak item 6). The radix path
+        accumulate it replaced (review round 4 weak item 6). The radix path
         (FheUintRadix.__mul__) remains the PBS-count champion."""
         o = self._coerce(other)
         return type(self)(circuits.mul_csa(self.bits, o.bits, self.ck), self.ck)

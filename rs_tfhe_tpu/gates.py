@@ -5,7 +5,7 @@ batches plus a constant torus bias on the body, followed by one gate
 bootstrap (reference gates.rs:54-218). All functions operate on ciphertext
 *batches* uint32 [B, n0+1]; a single ciphertext is just B = 1. There is no
 separate "batch_*" entry point as in the reference (gates.rs:352-547) — the
-batch axis IS the parallelism, sharded across TPU cores by parallel/.
+batch axis IS the parallelism, sharded across devices by parallel/.
 """
 
 from __future__ import annotations

@@ -3,12 +3,12 @@
 Reference: rs-tfhe key.rs. Differences by design:
   - keys are immutable pytrees, usable directly as jitted-function arguments
     (params ride along as static metadata);
-  - the key-switching key is stored pre-limb-split for the one-hot MXU
+  - the key-switching key is stored pre-limb-split for the one-hot int8
     contraction (ops/keyswitch.py);
-  - the bootstrapping key is stored as coefficient polynomials (a few MB)
-    plus the byte-packed limb layout the whole-rotation kernel streams
-    (bsk_packed) — the TPU analogue of the reference's precomputed
-    TRGSWLv1FFT (key.rs:19,124-156);
+  - the bootstrapping key is stored as coefficient polynomials (a few MB);
+    each blind-rotation step expands its row into the exact-contraction
+    operand on the fly (ops/poly.build_step_matrix) — the analogue of the
+    reference's precomputed TRGSWLv1FFT (key.rs:19,124-156);
   - generation is deterministic from an explicit jax.random key (the
     reference uses thread_rng, key.rs:34).
 """
@@ -78,16 +78,6 @@ class CloudKey:
     ksk_limbs: jax.Array  # int8 [N*IKS_T*BASE, 4*lane_pad(n0+1)]
     bsk: jax.Array  # uint32 [n0, 2L, 2, N]
     params: TfheParams = dataclasses.field(metadata=dict(static=True))
-    #: byte-packed limb form for the fused blind-rotation kernel — THE BSK
-    #: precompute (ops/pallas_blind_rotate.prepare_bsk_limbs); derived, not
-    #: serialized. (A fully-expanded circulant precompute was removed in
-    #: round 2: ~35 GB at SECURITY_128_BIT cannot exist on 16 GB chips, and
-    #: in-VMEM expansion measured faster anyway.)
-    bsk_packed: Optional[jax.Array] = None  # int32 [n0, 2, 2L, 2N]
-    #: negacyclically extended BSK limb vectors for the commuted small-batch
-    #: kernel (ops/pallas_blind_rotate.prepare_bsk_vecs); derived, not
-    #: serialized; None for multi-limb/odd-shape sets the kernel rejects.
-    bsk_vecs: Optional[jax.Array] = None  # int8 [n0, 2*(4-drop), 2L*2N]
     #: raw key data of the PRNG key `generate` was called with. The key
     #: masks are pseudorandom streams derived from it, so SEEDED
     #: serialization (utils/serialization.save_cloud_key(seeded=True))
@@ -98,32 +88,23 @@ class CloudKey:
     #: multi-bit (grouping factor 2) bootstrapping key: TRGSW encryptions of
     #: the four pair-indicator products per lv0 secret-bit PAIR
     #: (gen_bootstrapping_key_mb). Optional — `generate(multibit=True)`.
-    #: Halves the sequential CMUX-chain length for the small-batch latency
-    #: kernel; no reference analog (the reference rotates bit-by-bit,
+    #: Halves the sequential CMUX-chain length of small batches; no
+    #: reference analog (the reference rotates bit-by-bit,
     #: trgsw.rs:209-223).
     bsk_mb: Optional[jax.Array] = None  # uint32 [n0/2, 4, 2L, 2, N]
-    #: extended pattern limb vectors the mb Mosaic kernel streams
-    #: (ops/pallas_blind_rotate.prepare_bsk_mb_vecs); derived, not
-    #: serialized.
-    bsk_mb_vecs: Optional[jax.Array] = None  # int8 [n0/2, 4*RB, 2L*2N]
 
     @staticmethod
     def generate(
         key: jax.Array, sk: SecretKey, multibit: bool = False
     ) -> "CloudKey":
-        ksk_limbs, bsk, packed, vecs, mb, mb_vecs = _generate_jit(
-            key, sk, multibit=multibit
-        )
+        ksk_limbs, bsk, mb = _generate_jit(key, sk, multibit=multibit)
         return CloudKey(
             testvec=gen_testvec(sk.params),
             ksk_limbs=ksk_limbs,
             bsk=bsk,
             params=sk.params,
-            bsk_packed=packed,
-            bsk_vecs=vecs,
             gen_seed=jax.random.key_data(key).astype(jnp.uint32),
             bsk_mb=mb,
-            bsk_mb_vecs=mb_vecs,
         )
 
     @staticmethod
@@ -152,35 +133,19 @@ class CloudKey:
 
 @functools.partial(jax.jit, static_argnames=("multibit",))
 def _generate_jit(key: jax.Array, sk: SecretKey, multibit: bool = False):
-    """KSK + BSK + packed-BSK generation fused into ONE jitted program —
-    one device dispatch instead of three, halving warm keygen latency
-    (sk's params ride along as static pytree metadata)."""
-    from .ops.pallas_blind_rotate import (
-        prepare_bsk_limbs,
-        prepare_bsk_mb_vecs,
-        prepare_bsk_vecs,
-        small_param_ok,
-    )
-
+    """KSK + BSK (+ multi-bit BSK) generation fused into ONE jitted program
+    — one device dispatch instead of several (sk's params ride along as
+    static pytree metadata)."""
     k_ksk, k_bsk = jax.random.split(key)
     ksk_limbs = gen_key_switching_key(k_ksk, sk)
     bsk = gen_bootstrapping_key(k_bsk, sk)
-    vecs = (
-        prepare_bsk_vecs(bsk, drop_limbs=sk.params.bsk_round_bits // 8)
-        if small_param_ok(sk.params)
-        else None
-    )
-    mb = mb_vecs = None
+    mb = None
     if multibit:
         # fold_in keeps the KSK/BSK PRNG streams byte-identical to a
         # non-multibit generation (golden vectors + seeded replay depend
         # on that); 0x6d62 = "mb".
         mb = gen_bootstrapping_key_mb(jax.random.fold_in(key, 0x6D62), sk)
-        if small_param_ok(sk.params):
-            mb_vecs = prepare_bsk_mb_vecs(
-                mb, drop_limbs=sk.params.bsk_round_bits // 8
-            )
-    return ksk_limbs, bsk, prepare_bsk_limbs(bsk), vecs, mb, mb_vecs
+    return ksk_limbs, bsk, mb
 
 
 def gen_testvec(params: TfheParams) -> jax.Array:
@@ -211,9 +176,8 @@ def gen_key_switching_key(key: jax.Array, sk: SecretKey) -> jax.Array:
     mu_flat = mu.reshape(n1 * t * base)
 
     # zero the k == 0 rows (reference skips them: key.rs:109-111); the
-    # encrypt+zero+limb-split pipeline runs as a scan over row chunks —
-    # bit-identical to the monolithic form, but without the 300+ s XLA
-    # compile wall its [36864, 700] fusions hit on TPU (tlwe.py).
+    # encrypt+zero+limb-split pipeline runs as a scan over row chunks,
+    # bit-identical to the monolithic form (tlwe.lwe_encrypt_rows_limbs).
     zero_mask = jnp.tile(jnp.arange(base), n1 * t) == 0
     return lwe_encrypt_rows_limbs(
         key, sk.lv0, mu_flat, params.ksk_alpha, zero_mask=zero_mask
@@ -227,9 +191,8 @@ def gen_bootstrapping_key(key: jax.Array, sk: SecretKey) -> jax.Array:
     here the n0 encryptions are one batched tensor op. If the parameter set
     requests BSK rounding (params.bsk_round_bits), the rows are generated as
     reduced-modulus samples — mask on the 2^rb grid, body rounded to it —
-    so every consumer (XLA scan, Nussbaumer, fused kernel, serialization)
-    sees the same 24-bit key and the fused kernel can skip the zero low
-    limb planes. NOT post-hoc rounding: rounding a full-torus mask after
+    so every consumer (XLA scan, Nussbaumer, serialization) sees the same
+    24-bit key, whose lowest limb plane is zero. NOT post-hoc rounding: rounding a full-torus mask after
     encryption would inject an error*secret term amplified ~N/2x (measured
     0.8% gate failures); grid sampling keeps a (*) s exact.
     """
@@ -282,8 +245,8 @@ def gen_bootstrapping_key_mb(key: jax.Array, sk: SecretKey) -> jax.Array:
 
 def round_bsk(bsk: jax.Array, round_bits: int) -> jax.Array:
     """Round every BSK coefficient to 32 - round_bits torus bits (to
-    nearest, wrapping). Test helper for the fused kernel's drop_limbs
-    contract — real key generation uses grid sampling instead
+    nearest, wrapping). Test helper for reduced-modulus keys — real key
+    generation uses grid sampling instead
     (gen_bootstrapping_key), which avoids the mask-rounding-error-times-
     secret term that post-hoc rounding would inject."""
     if round_bits <= 0:
@@ -291,5 +254,3 @@ def round_bsk(bsk: jax.Array, round_bits: int) -> jax.Array:
     half = jnp.uint32(1 << (round_bits - 1))
     rb = jnp.uint32(round_bits)
     return ((bsk + half) >> rb) << rb
-
-

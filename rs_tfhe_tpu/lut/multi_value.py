@@ -20,15 +20,15 @@ implementation's blind-rotation output noise (utils.noise.estimate:
 sqrt(var_br) ~ 1.1e-5 at SECURITY_128_BIT_RADIX) sits 20-100x BELOW the
 key-switch (3.9e-4) and mod-switch (2.0e-3) floors, because the centered
 gadget decomposition + exact integer polynomial products leave no FFT
-rounding and no decomposition-bias ramp (NOTES-PERF.md). Multiplying the
+rounding and no decomposition-bias ramp (NOTES-PERF.md in git history). Multiplying the
 smallest term of the budget by ||w|| <= ~22 moves the radix decision
 margins by under 2% (utils.noise.lut_margin(..., mv_norm=...)), so every
 duplicated-testvector pipeline in models/arithmetic.py (sum+carry,
 trichotomy e3+e1, eq/gt/lt triples) can run at one rotation per input.
 
 The reference has no analogue (one test vector per bootstrap,
-bootstrap/lut.rs:49-65); this is a TPU-first capability: the rotation is
-the 700-step MXU scan, while the w_k multiplies are a handful of static
+bootstrap/lut.rs:49-65): the rotation is the 700-step contraction scan,
+while the w_k multiplies are a handful of static
 rolls and elementwise uint32 multiply-adds that XLA fuses.
 """
 
@@ -147,8 +147,7 @@ def _mv_pipeline(flat, tv0, ck: CloudKey, terms, impl: str = "auto"):
     # `impl` keys the jit cache on config.step_impl (read at trace time
     # inside blind_rotate — CLAUDE.md invariant, see gates._gate2).
     del impl
-    acc = blind_rotate(flat, tv0, ck.bsk, ck.params,
-                       bsk_packed=ck.bsk_packed, bsk_vecs=ck.bsk_vecs)
+    acc = blind_rotate(flat, tv0, ck.bsk, ck.params)
     accs = jnp.stack([_mul_sparse(acc, t) for t in terms], axis=1)
     lv1 = sample_extract(accs)  # [B, K, N+1]
     return identity_key_switch(lv1, ck.ksk_limbs, ck.params)

@@ -8,7 +8,7 @@ absorb a carry without wrapping.
 
 Per digit position the (result, carry) pair runs as ONE batched programmable
 bootstrap with two different test vectors — per-ciphertext LUTs are a single
-blind-rotation batch on TPU, something the reference's scalar API cannot
+blind-rotation batch, something the reference's scalar API cannot
 express.
 """
 
@@ -307,7 +307,7 @@ def mul_radix(a: jax.Array, b: jax.Array, ck: CloudKey, base_bits: int = 2,
     ~3.4 sigma (p ~ 7e-4/PBS) at SECURITY_128_BIT_RADIX. max_chunk_terms
     caps summed bootstrap noise per decode at the documented 8.
 
-    multi_value=True (VERDICT r4 item 4) factors stage 2's (lo, hi)
+    multi_value=True (review round 4 item 4) factors stage 2's (lo, hi)
     test-vector pair through ONE blind rotation (lut.multi_value): the
     dominant stage's batch halves from 2D^2 to D^2, decode-identical
     outputs, and the factoring norms (6.3/2.8) keep the certified NIBBLE

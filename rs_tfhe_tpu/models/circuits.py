@@ -5,7 +5,7 @@ The framework analogue of the reference's example circuits
 gate by gate) — plus batch-first designs the reference cannot express: a
 Kogge-Stone adder whose every level runs ALL bit positions through one
 batched bootstrap, turning the O(W) serial gate chain into O(log W) batched
-gate rounds on the MXU.
+gate rounds on the device.
 
 Encrypted integers are bit batches uint32 [..., W, n0+1], LSB first
 (bit_utils.py). All circuits accept arbitrary leading batch dims, so a batch
@@ -109,7 +109,7 @@ def sub(a: jax.Array, b: jax.Array, ck: CloudKey) -> jax.Array:
 
 def mul_csa(a: jax.Array, b: jax.Array, ck: CloudKey) -> jax.Array:
     """W-bit multiply (mod 2^W) via a carry-save (Wallace) reduction —
-    VERDICT r4 weak item 6: the old schoolbook multiply ran W-1 SEQUENTIAL
+    review round 4 weak item 6: the old schoolbook multiply ran W-1 SEQUENTIAL
     Kogge-Stone adds (~10 gate rounds each); here every reduction level
     compresses all 3-rows groups AT ONCE (they stack on a fresh leading
     batch axis, so one level = 4 batched gate rounds regardless of W):

@@ -10,7 +10,7 @@ same netlist runs in ~2*W plan groups whose gathers/scatters are static
 index maps (pure data movement under jit).
 
 This is the server-runtime seam: circuit compilation and scheduling are
-host/native work, gate execution stays on the TPU.
+host/native work, gate execution stays on the device.
 """
 
 from __future__ import annotations
@@ -244,12 +244,11 @@ def compile_circuit(circuit: Circuit, the_plan: Plan | None = None):
     """Compile the whole execution plan into ONE jitted device program.
 
     `evaluate` dispatches each plan group separately (~100 host round trips
-    for the 32-bit adder — measured 1.52 s on v5e where the bootstrap math
-    itself is ~0.3 s). The returned `run(inputs, ck)` closes over the static
+    for the 32-bit adder). The returned `run(inputs, ck)` closes over the static
     plan (gather/scatter indices bake in as constants) and jits the entire
     group sequence, so a full circuit evaluation is a single dispatch.
-    Keys stay jit ARGUMENTS (closure-captured CloudKeys embed as HLO
-    literals and blow the remote-compile payload — NOTES-PERF.md).
+    Keys stay jit ARGUMENTS (closure-captured CloudKeys would embed into
+    the program as constants).
     Compile cost scales with gate count; the executable is cached per
     (circuit identity, key shapes) by jax's jit cache.
     """

@@ -4,8 +4,8 @@ FHE evaluation cannot branch on encrypted data, so sorting must be a
 data-oblivious network. A bitonic sorter's compare-exchange schedule is
 static, and all K/2 exchanges within a stage are independent — so each
 stage lowers to ONE batched comparator and ONE batched swap-select over
-the whole (pairs x batch x width) volume. That is the TPU-first shape:
-O(log^2 K) sequential stages, each a full-MXU batched gate/PBS program,
+the whole (pairs x batch x width) volume: O(log^2 K) sequential stages,
+each one batched gate/PBS program,
 instead of the reference's per-ciphertext loops (its comparator sketch,
 src/circuits.rs, is 9 LoC of dead code — rs-tfhe has no sorting at all).
 

@@ -109,7 +109,7 @@ def _ptr(a, typ=ctypes.c_uint32):
 
 
 def negacyclic_polymul(a, b) -> np.ndarray:
-    """Exact u32 negacyclic product (client-side; server path uses the MXU)."""
+    """Exact u32 negacyclic product (client-side; server path uses int8 matmuls on the device)."""
     a, b = _u32(a), _u32(b)
     n = a.shape[-1]
     out = np.empty(n, dtype=np.uint32)

@@ -1,28 +1,24 @@
-"""Batched blind rotation: the TFHE bootstrap hot loop, TPU-first.
+"""Batched blind rotation: the TFHE bootstrap hot loop.
 
 Reference: rs-tfhe trgsw.rs:198-274. The n0-step CMUX chain is inherently
 sequential per ciphertext (each step consumes the previous accumulator), so —
 exactly as the reference scales by batching independent ciphertexts across CPU
-threads (trgsw.rs:289-305) — we batch ciphertexts on-chip: a `lax.scan` over
-the n0 steps where every step processes the whole [B, 2, N] accumulator batch:
+threads (trgsw.rs:289-305) — we batch ciphertexts on the device: a `lax.scan`
+over the n0 steps where every step processes the whole [B, 2, N] accumulator
+batch:
 
   step i:  rot   = X^{a~_i} * acc            (per-batch monomial rotation)
            diff  = rot - acc
-           d     = gadget_decompose(diff)    [B, 2L, N]   (VPU bit ops)
-           delta = d (x) BSK_i               (exact limb matmul on the MXU)
+           d     = gadget_decompose(diff)    [B, 2L, N]
+           delta = d (x) BSK_i               (exact int8 limb contraction)
            acc   = acc + delta               (== CMUX(acc, rot; BSK_i))
 
-The BSK stays in its [n0, 2L, 2, N] coefficient form (a few MB) plus the
-byte-packed limb layout the fused kernel streams (CloudKey.bsk_packed);
-per-step operands are expanded on the fly (in VMEM for the fused kernel).
+The BSK stays in its [n0, 2L, 2, N] coefficient form (a few MB); each step
+expands its row into the contraction operand on the fly (ops/poly.py).
 
-Step implementations (config.step_impl; all bit-exact): "xla" — the MXU
-circulant path above; "nussbaumer" — transform path (ops/nussbaumer.py);
-"pallas"/"fused"/"fused_small"/"fused_wide" — Mosaic kernels
-(ops/pallas_*.py). "auto" on TPU: the commuted small-batch kernel at
-B <= 2 (precomputed bsk_vecs), the step-major wide kernel when its VMEM
-shapes are eligible, else the per-tile fused kernel; Nussbaumer/XLA cover
-shapes the kernels reject and every non-TPU platform.
+Step implementations (config.step_impl; all bit-exact): "auto" and "xla" —
+the circulant contraction above, one [B*dk, 2L*N] x [2L*N, 8N] int8 GEMM per
+step; "nussbaumer" — the transform path (ops/nussbaumer.py), explicit only.
 """
 
 from __future__ import annotations
@@ -32,61 +28,31 @@ import jax.numpy as jnp
 
 from ..config import config
 from ..params import TORUS_BITS, TfheParams
-from ..torus import split_u32_limbs
 from .decompose import gadget_decompose
-from .pallas_step import fused_external_product
-from .poly import (
-    build_step_matrix,
-    monomial_rotate,
-    negacyclic_extend,
-    polymul_small_by_torus_multi,
-)
+from .poly import build_step_matrix, monomial_rotate, polymul_small_by_torus_multi
+
+STEP_IMPLS = ("auto", "xla", "nussbaumer")
 
 
-_FB_WIDE = 128  # wide-kernel batch granularity (its tile size)
+def check_step_impl() -> str:
+    """config.step_impl, validated: a removed or misspelled value raises
+    instead of silently running another path."""
+    impl = config.step_impl
+    if impl not in STEP_IMPLS:
+        raise ValueError(
+            f"unknown step_impl {impl!r} (RS_TFHE_STEP_IMPL); "
+            f"expected one of {STEP_IMPLS}"
+        )
+    return impl
 
 
 def mb_route_batch_cap(params: TfheParams) -> int:
-    """Largest batch `auto` routes through the multi-bit chain — a measured
-    crossover (LATENCY_SWEEP_r05.json, v5e 2026-08): at L=2 (FAST) mb wins
-    only to B=2 (B=4: 5.7 ms vs 5.4 per-tile), at L=3 (strict boolean sets)
-    the heavier per-step dot keeps the half-length chain ahead to B=4
-    (7.9 ms vs 8.5); by B=8 the per-tile kernel wins everywhere (FAST 5.8
-    vs 10.6, strict 8.8 vs 15.4)."""
+    """Largest batch `auto` routes through the multi-bit chain when the key
+    carries multi-bit material: the half-length chain halves the sequential
+    steps but contracts twice the BSK entries per rotation, so it is a
+    small-batch lever only. The caps (2 at L=2, 4 at L >= 3) were set on
+    another accelerator and are not yet re-derived on the GPU."""
     return 4 if params.trgsw_lv1.l >= 3 else 2
-
-
-def _use_pallas_step(params: TfheParams, batch: int) -> bool:
-    """Per-step fused kernel: explicit selection only — at large batches XLA
-    pipelines the circulant build against the MXU dots better, and at small
-    batches the whole-rotation kernel (see below) wins outright."""
-    if config.step_impl != "pallas":
-        return False
-    qualifies = (
-        params.digit_limbs == 1 and params.n1 % 128 == 0 and batch % 128 == 0
-    )
-    if not qualifies:
-        raise ValueError(
-            "pallas step requires digit_limbs == 1 and N, batch % 128 == 0"
-        )
-    return True
-
-
-def select_fb(batch: int, n1: int) -> int:
-    """Batch-tile rows for the fused kernel.
-
-    fb=128 is fastest at EVERY ring size once the kernel raises the
-    compiler's 16 MB scoped-VMEM cap for n > 1024 (measured on v5e:
-    N=1024 7.6k rot/s; N=2048 892 vs 840 at fb=64; N=4096 186 vs 74 at
-    the old N-scaled fb=16 — the earlier N-scaled caps in this function
-    predated the cap discovery and are obsolete). fb=256 is ~25% SLOWER
-    at N=1024 (VMEM pressure degrades double-buffering, as in round 1).
-    Batches below 128 shrink to the next power of two >= 8 — per-step
-    cost is then VPU-build-bound (batch-independent), which is what makes
-    a padded single gate run in ~12 ms.
-    """
-    del n1
-    return 128 if batch >= 128 else max(8, 1 << (batch - 1).bit_length())
 
 
 def modswitch(x: jax.Array, params: TfheParams) -> jax.Array:
@@ -101,7 +67,6 @@ def blind_rotate_mb(
     testvec: jax.Array,
     bsk_mb: jax.Array,
     params: TfheParams,
-    bsk_mb_vecs=None,
 ) -> jax.Array:
     """Multi-bit (grouping factor 2) blind rotation: n0/2 external products.
 
@@ -110,61 +75,20 @@ def blind_rotate_mb(
     in the uint32 WORD domain with per-ciphertext monomial rotations —
         comb = sum_v X^(a1*v1 + a2*v2) * G_v  (encrypts X^(a1*s1 + a2*s2))
     — and ONE external product replaces the accumulator:  acc <- acc ⊡ comb.
-    Halves the sequential chain (the latency lever: per-step cost at tiny
-    batches is VPU-build-bound, NOTES-PERF.md); NOT a throughput lever — the
-    batched MXU formulation's cost scales with BSK entries contracted per
-    rotation (2x n0 here), not with steps, so the wide kernel keeps the
-    standard CMUX form. No reference analog (trgsw.rs:198-226 is bit-serial).
-
-    This function is the exact XLA path (per-ciphertext circulant operands:
-    correct everywhere, used as the oracle and on CPU); on TPU the commuted
-    small-batch Mosaic kernel takes over when eligible.
+    Halves the sequential chain (a latency lever at tiny batches); NOT a
+    throughput lever — the combined operand is per ciphertext, so each step
+    builds one circulant per ciphertext (under vmap). No reference analog
+    (trgsw.rs:198-226 is bit-serial).
     """
     g = params.trgsw_lv1
     n0, n1 = params.n0, params.n1
     assert n0 % 2 == 0
     batch = ct.shape[0]
-    groups = n0 // 2
 
     b_til = (2 * n1 - modswitch(ct[:, n0], params)) % (2 * n1)  # [B]
     a_til = modswitch(ct[:, :n0], params)  # [B, n0]
     a1 = a_til[:, 0::2]  # [B, G]
     a2 = a_til[:, 1::2]
-
-    on_tpu = jax.devices()[0].platform == "tpu"
-    use_kernel = config.step_impl == "fused_small_mb" or (
-        config.step_impl == "auto" and on_tpu
-        and batch <= mb_route_batch_cap(params)
-    )
-    if use_kernel:
-        from .pallas_blind_rotate import (
-            fused_blind_rotate_small_mb,
-            mb_rows_per_pattern,
-            mb_small_eligible,
-            prepare_bsk_mb_vecs,
-        )
-
-        if not mb_small_eligible(params, batch, testvec.ndim):
-            if config.step_impl == "fused_small_mb":
-                raise ValueError("mb blind rotate: shape/params not eligible")
-            use_kernel = False
-        elif not on_tpu:
-            raise ValueError("mb blind rotate: Mosaic kernel requires TPU")
-    if use_kernel:
-        drop = params.bsk_round_bits // 8
-        vecs = (
-            bsk_mb_vecs
-            if bsk_mb_vecs is not None
-            else prepare_bsk_mb_vecs(bsk_mb, drop_limbs=drop)
-        )
-        return fused_blind_rotate_small_mb(
-            b_til.astype(jnp.int32),
-            _mb_k_rows(a1, a2, params, mb_rows_per_pattern(params, drop)),
-            testvec,
-            vecs,
-            params,
-            drop_limbs=drop,
-        )
 
     tv = jnp.broadcast_to(testvec, (batch, 2, n1))
     acc0 = monomial_rotate(tv, b_til[:, None])
@@ -189,244 +113,64 @@ def blind_rotate_mb(
     return acc
 
 
-def _mb_k_rows(
-    a1: jax.Array, a2: jax.Array, params: TfheParams, reps: int
-) -> jax.Array:
-    """Per-row monomial exponents for the mb kernel's output barrel roll:
-    a1/a2 int32 [B, G] -> int32 [G, B, 4*reps, 1], pattern-major order
-    [0, a1, a2, a1+a2] with each exponent repeated `reps` times (the
-    kernel's dot-output rows per pattern, mb_rows_per_pattern) so the
-    roll's per-row bit select is a plain broadcast."""
-    n1 = params.n1
-    kv = jnp.stack(
-        [jnp.zeros_like(a1), a1, a2, (a1 + a2) % (2 * n1)], axis=2
-    )  # [B, G, 4]
-    rows = jnp.repeat(kv, reps, axis=2)  # [B, G, 4*reps]
-    return jnp.transpose(rows, (1, 0, 2))[..., None]  # [G, B, 4*reps, 1]
-
-
 def blind_rotate(
     ct: jax.Array,
     testvec: jax.Array,
     bsk: jax.Array,
     params: TfheParams,
-    bsk_packed=None,
-    bsk_vecs=None,
     bsk_mb=None,
-    bsk_mb_vecs=None,
 ) -> jax.Array:
     """Blind-rotate a batch of lv0 LWE ciphertexts.
 
     ct:      uint32 [B, n0+1]
     testvec: uint32 [2, N] (shared) or [B, 2, N] (per-ciphertext LUTs)
-    bsk_packed: optional int32 [n0, 2, 2L, 2N] byte-packed limb form for the
-             fused kernel (CloudKey precomputes it; packed on the fly if None)
-    bsk_vecs: optional int8 [n0, 2*(4-drop), 2L*2N] extended limb vectors for
-             the small-batch kernel (CloudKey precomputes when eligible)
-    bsk_mb / bsk_mb_vecs: optional multi-bit pair-indicator key material
-             (CloudKey.generate(multibit=True)); small batches route through
-             the half-length grouped chain (blind_rotate_mb) when present
     bsk:     uint32 [n0, 2L, 2, N] (TRGSW coefficient polys)
+    bsk_mb:  optional multi-bit pair-indicator key
+             (CloudKey.generate(multibit=True)); batches up to
+             mb_route_batch_cap route through the half-length grouped chain
+             (blind_rotate_mb) when present
     Returns the accumulator TRLWE batch, uint32 [B, 2, N].
     """
-    g = params.trgsw_lv1
+    impl = check_step_impl()
     n0, n1 = params.n0, params.n1
     batch = ct.shape[0]
-    d_limbs = params.digit_limbs
 
-    # Multi-bit routing: a LATENCY lever only — per-step cost at tiny
-    # batches is circulant-build-bound and grouping halves the steps; the
-    # batched throughput kernels' cost scales with BSK entries contracted
-    # per rotation (2x n0 for mb), so larger batches keep the CMUX form.
-    # Batch cap per parameter set = the measured crossover (mb_route_batch_cap).
-    if bsk_mb is not None and (
-        config.step_impl == "fused_small_mb"
-        or (config.step_impl == "auto"
-            and batch <= mb_route_batch_cap(params))
+    if bsk_mb is not None and impl == "auto" and (
+        batch <= mb_route_batch_cap(params)
     ):
-        return blind_rotate_mb(
-            ct, testvec, bsk_mb, params, bsk_mb_vecs=bsk_mb_vecs
-        )
+        return blind_rotate_mb(ct, testvec, bsk_mb, params)
 
     b_til = (2 * n1 - modswitch(ct[:, n0], params)) % (2 * n1)  # [B]
     a_til = modswitch(ct[:, :n0], params)  # [B, n0]
 
-    on_tpu = jax.devices()[0].platform == "tpu"
-
-    # Commuted Hankel-operand kernel (VERDICT r2 item 4 / NOTES-PERF round-3
-    # queue 2): at tiny batches the per-step cost is VPU-build bound, and
-    # building the circulant from the DIGITS (2L packed planes) instead of
-    # the BSK (2*2L planes) halves the build. The BSK side is flat
-    # contraction vectors — CloudKey precomputes them (bsk_vecs); built on
-    # the fly only for raw-bsk callers under the explicit override. Auto
-    # routes B <= 2 through it (measured v5e FAST gate: 4.7 ms vs 8.5 at
-    # B=1, 6.9 vs ~7-11 at B=2; the per-ciphertext serial build loses from
-    # B=4: 11.0 vs 7.1 — scripts/bench_small_kernel.py).
-    use_small = config.step_impl == "fused_small" or (
-        config.step_impl == "auto"
-        and on_tpu
-        and batch <= 2
-        and bsk_vecs is not None
-    )
-    if use_small:
-        from .pallas_blind_rotate import (
-            fused_blind_rotate_small,
-            prepare_bsk_vecs,
-            small_eligible,
-        )
-
-        if not small_eligible(params, batch, testvec.ndim):
-            if config.step_impl == "fused_small":
-                raise ValueError(
-                    "small blind rotate: shape/params not eligible"
-                )
-            use_small = False
-        elif not on_tpu:
-            raise ValueError("small blind rotate: Mosaic kernel requires TPU")
-    if use_small:
-        drop = params.bsk_round_bits // 8
-        if bsk_vecs is None:
-            bsk_vecs = prepare_bsk_vecs(bsk, drop_limbs=drop)
-        return fused_blind_rotate_small(
-            b_til.astype(jnp.int32),
-            a_til.T,
-            testvec,
-            bsk_vecs,
-            params,
-            drop_limbs=drop,
-        )
-
-    if config.step_impl in ("fused", "fused_wide", "fused_tile", "auto"):
-        from .pallas_blind_rotate import (
-            eligible,
-            fused_blind_rotate,
-            fused_blind_rotate_wide,
-            prepare_bsk_limbs,
-            wide_eligible,
-        )
-
-        # The whole-rotation VMEM-resident kernel (with byte-packed limb
-        # builds) dominates at EVERY batch size on v5e: throughput plateaus
-        # ~7.6k rotations/s from batch 2048 (vs 2 460 for the XLA scan) at
-        # SECURITY_128_BIT_FAST. One Mosaic program per (step, fb-row
-        # tile). Small batches shrink the tile instead of padding to 128 —
-        # the per-step cost is then VPU-build-bound (batch-independent), so
-        # a padded single gate runs the rotation in 11.8 ms at fb=8
-        # (vs 22.7 ms at fb=128; v5e, measured 2026-08).
-        fb = select_fb(batch, n1)
-        pad = (-batch) % fb
-        shapes_ok = eligible(params, batch + pad, testvec.ndim, fb=fb)
-        if config.step_impl in ("fused", "fused_tile"):
-            # "fused_tile" forces the per-tile kernel even where the wide
-            # kernel is eligible (A/B harness for the batch-region tuning,
-            # scripts/bench_latency_sweep.py)
-            if not shapes_ok:
-                raise ValueError("fused blind rotate: shape/testvec not eligible")
-            if not on_tpu:
-                raise ValueError("fused blind rotate: Mosaic kernel requires TPU")
-        drop = params.bsk_round_bits // 8
-        wide_ok = wide_eligible(
-            params, batch + ((-batch) % _FB_WIDE), testvec.ndim, drop
-        )
-        if config.step_impl == "fused_wide":
-            if not wide_ok:
-                raise ValueError(
-                    "wide blind rotate: shape/scratch not eligible"
-                )
-            if not on_tpu:
-                raise ValueError("wide blind rotate: Mosaic kernel requires TPU")
-        # Routing in the B = 4..128 region was measured exhaustively in
-        # round 5 (scripts/bench_latency_sweep.py -> LATENCY_SWEEP_r05.json):
-        # the per-tile kernel ties or wins at every batch there (e.g. FAST
-        # B=4: 5.4 ms tile vs 5.7 mb vs 9.4 commuted-small; B=8: 5.8 vs
-        # 10.6 mb), so the existing crossovers — mb/commuted at B <= 2,
-        # wide from its >= 256 eligibility — stand as measured optima.
-        use_wide = config.step_impl == "fused_wide" or (
-            config.step_impl in ("fused", "auto") and wide_ok
-        )
-        if use_wide and on_tpu:
-            # step-major whole-batch-resident kernel: the per-step circulant
-            # build amortizes over every 128-row tile (1.24x at B >= 2048,
-            # measured v5e 2026-08); per-tile kernel keeps small batches.
-            pad = (-batch) % _FB_WIDE
-            b_p = jnp.pad(b_til.astype(jnp.int32), (0, pad))
-            a_p = jnp.pad(a_til.T, ((0, 0), (0, pad)))
-            tv = (
-                jnp.pad(testvec, ((0, pad), (0, 0), (0, 0)))
-                if testvec.ndim == 3
-                else testvec
-            )
-            packed = bsk_packed if bsk_packed is not None else prepare_bsk_limbs(bsk)
-            # joint_rot: both polys rotate+decompose as one value — measured
-            # +2.5% (8.11k -> 8.32k rot/s, B=4096 FAST, v5e round 5)
-            acc = fused_blind_rotate_wide(
-                b_p, a_p, tv, packed, params, drop_limbs=drop, joint_rot=True
-            )
-            return acc[:batch]
-        if shapes_ok and on_tpu:
-            b_p = jnp.pad(b_til.astype(jnp.int32), (0, pad))
-            a_p = jnp.pad(a_til.T, ((0, 0), (0, pad)))
-            tv = (
-                jnp.pad(testvec, ((0, pad), (0, 0), (0, 0)))
-                if testvec.ndim == 3
-                else testvec
-            )
-            packed = bsk_packed if bsk_packed is not None else prepare_bsk_limbs(bsk)
-            acc = fused_blind_rotate(
-                b_p, a_p, tv, packed, params,
-                drop_limbs=params.bsk_round_bits // 8,
-                fb=fb,
-                # measured 4541 vs 4503 rot/s at strict B=4096 (round 5)
-                joint_rot=True,
-            )
-            return acc[:batch]
-
     tv = jnp.broadcast_to(testvec, (batch, 2, n1))
     acc0 = monomial_rotate(tv, b_til[:, None])
 
-    use_pallas = _use_pallas_step(params, batch)
-    # Nussbaumer: transform path, platform-independent and testvec-agnostic.
-    # The fused kernel above handles per-ciphertext LUT test vectors too, so
-    # on TPU with digit_limbs == 1 this branch only fires for shapes the
-    # kernel rejects (N % 128 != 0); its main jobs are multi-limb parameter
-    # sets (bgbit > 8) and the explicit step_impl="nussbaumer" override.
-    use_nussbaumer = (
-        config.step_impl == "nussbaumer"
-        or (config.step_impl == "auto" and batch < 64 and on_tpu)
-    )
-    if use_nussbaumer:
+    if impl == "nussbaumer":
         from .nussbaumer import check_bounds, external_product_step, prepare_bsk_step
 
-        if check_bounds(params):
-            pass
-        elif config.step_impl == "nussbaumer":
+        if not check_bounds(params):
             raise ValueError("nussbaumer step: parameter bounds not satisfied")
-        else:
-            use_nussbaumer = False
+
+        def delta_fn(digits, bsk_i):
+            return external_product_step(
+                digits, prepare_bsk_step(bsk_i, params), params
+            )
+    else:
+
+        def delta_fn(digits, bsk_i):
+            mat = build_step_matrix(bsk_i)
+            return polymul_small_by_torus_multi(
+                digits, mat, params.digit_limbs, 2
+            )
 
     def step(acc, xs):
         bsk_i, a_i = xs
         rot = monomial_rotate(acc, a_i[:, None])
-        diff = rot - acc
-        digits = gadget_decompose(diff, params)  # [B, 2L, N]
-        if use_nussbaumer:
-            delta = external_product_step(
-                digits, prepare_bsk_step(bsk_i, params), params
-            )
-        elif use_pallas:
-            # kernel-ready BSK layout from the raw step polys (cheap: 98 kB
-            # of elementwise limb splitting; the 50 MB circulant expansion
-            # happens inside the kernel's VMEM)
-            xl = split_u32_limbs(negacyclic_extend(bsk_i))  # [2L, 2, 2N, 4]
-            xl = jnp.transpose(xl, (1, 3, 0, 2))  # [2, 4, 2L, 2N]
-            lhs = digits.astype(jnp.int8).reshape(batch, 2 * g.l * n1)
-            delta = fused_external_product(lhs, xl, 2)  # [B, 2, N]
-        else:
-            mat = build_step_matrix(bsk_i)
-            delta = polymul_small_by_torus_multi(digits, mat, d_limbs, 2)
-        return acc + delta, None
+        digits = gadget_decompose(rot - acc, params)  # [B, 2L, N]
+        return acc + delta_fn(digits, bsk_i), None
 
-    # unroll=2: lets XLA overlap step i's MXU contraction with step i+1's
-    # circulant build (measured ~12% on v5e at batch 2048)
+    # unroll=2 lets XLA overlap step i's contraction with step i+1's operand
+    # build; a value chosen on another accelerator, not yet re-derived here.
     acc, _ = jax.lax.scan(step, acc0, (bsk, a_til.T), unroll=2)
     return acc

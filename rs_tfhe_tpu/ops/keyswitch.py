@@ -1,11 +1,10 @@
-"""Digit-decomposition key switching as a one-hot MXU contraction.
+"""Digit-decomposition key switching as a one-hot int8 contraction.
 
 The reference (trgsw.rs:332-360, proxy_reenc.rs:468-509) performs
 data-dependent gathers into a large table of LWE rows and subtracts the
-selected rows. On TPU gathers are slow and serial; instead we build the
-one-hot selection tensor of the base-2^basebit digits and contract it against
-the limb-split key table with a single exact int8 matmul — the gather becomes
-MXU work (the classic "one-hot matmul" TPU idiom).
+selected rows. Instead we build the one-hot selection tensor of the
+base-2^basebit digits and contract it against the limb-split key table with
+a single exact int8 matmul — the gather becomes tensor-core work.
 
 Row k=0 of each (i, j) block is all-zero (the reference skips k=0,
 key.rs:109-111), so selecting it subtracts nothing — no masking needed.

@@ -1,7 +1,7 @@
 """Nussbaumer negacyclic convolution for the external product — the
 small-batch/latency path.
 
-The direct MXU circulant method (ops/poly.py) is throughput-optimal but its
+The direct circulant method (ops/poly.py) is throughput-optimal but its
 per-step operand build is batch-independent (~50 MB at SECURITY_128_BIT), so
 single-gate latency is build-bound. Nussbaumer's algorithm maps the size-N
 negacyclic convolution over Z/2^32 onto 2r pointwise size-m negacyclic
@@ -10,7 +10,7 @@ negacyclic shifts, exact over the integers:
 
   A[q*r + i] -> a_i(Y) = sum_q A[..] Y^q   in S = Z[Y]/(Y^m + 1)
   A_hat[t]   = sum_i a_i * Y^(w*i*t),  w = m/r,  t < 2r     (shift-adds)
-  C_hat[t]   = sum_j A_hat[t, j] (*)_m B_hat[t, j]          (s16 MXU dots)
+  C_hat[t]   = sum_j A_hat[t, j] (*)_m B_hat[t, j]          (s16 dots)
   16c        = IDFT (unnormalized, wrapping int32)           (shift-adds)
   c          = fold (c_k = lin_k + Y lin_{k+r}) >> log2(2r)  (exact)
 

@@ -1,8 +1,8 @@
 """Exact negacyclic polynomial arithmetic in Z_{2^32}[X]/(X^N + 1).
 
-TPU-first design: instead of porting the reference's f64 negacyclic FFT
-(rs-tfhe fft/klemsa.rs:88-174 and the SPQLIOS AVX/FMA assembly), polynomial
-products are computed as *integer-exact matrix multiplications on the MXU*:
+Instead of porting the reference's f64 negacyclic FFT (rs-tfhe
+fft/klemsa.rs:88-174 and the SPQLIOS AVX/FMA assembly), polynomial products
+are computed as *integer-exact int8 matrix multiplications*:
 
   1. Extend t to t_ext = [t, -t] of length 2N; then the negacyclic product
      (d * t)[n] = sum_m d[m] * t_ext[(n - m) mod 2N], i.e. a matmul of d
@@ -13,7 +13,7 @@ products are computed as *integer-exact matrix multiplications on the MXU*:
   3. Recombine limb products with shifts modulo 2^32.
 
 This is *more* exact than the reference (whose FFT carries +/-1 ulp rounding,
-fft/mod.rs:136-159) and keeps the hot loop on the systolic array instead of
+fft/mod.rs:136-159) and keeps the hot loop on the tensor cores instead of
 scalar FFT butterflies.
 """
 
@@ -35,7 +35,7 @@ from ..torus import (
 )
 
 # ---------------------------------------------------------------------------
-# Exact integer dot products (MXU path)
+# Exact integer dot products
 # ---------------------------------------------------------------------------
 
 #: float32 holds integers exactly up to 2^24; limb products are <= 2^14, so a
@@ -43,18 +43,18 @@ from ..torus import (
 _BF16_CHUNK = 1024
 
 
-def exact_dot_i8(lhs: jax.Array, rhs: jax.Array) -> jax.Array:
-    """Integer-exact contraction of int8 operands: [..., K] x [K, M] -> int32.
+def exact_dot_i8(lhs: jax.Array, rhs: jax.Array, rhs_k_axis: int = 0) -> jax.Array:
+    """Integer-exact contraction of int8 operands -> int32.
 
-    With dot_impl="int8" this is a native s8xs8->s32 dot (1 MXU pass). With
-    "bf16" the contraction is chunked so f32 accumulation stays exact.
+    lhs [..., K]; rhs [K, M] (rhs_k_axis=0) or [M, K] (rhs_k_axis=1, the
+    contraction axis minor on both operands). Returns [..., M].
+    With dot_impl="int8" this is a native s8 x s8 -> s32 dot. With "bf16" the
+    contraction is chunked so float32 accumulation stays exact.
     """
+    dims = (((lhs.ndim - 1,), (rhs_k_axis,)), ((), ()))
     if config.dot_impl == "int8":
         return jax.lax.dot_general(
-            lhs,
-            rhs,
-            (((lhs.ndim - 1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
+            lhs, rhs, dims, preferred_element_type=jnp.int32
         )
     k = lhs.shape[-1]
     out = None
@@ -62,8 +62,10 @@ def exact_dot_i8(lhs: jax.Array, rhs: jax.Array) -> jax.Array:
         stop = min(start + _BF16_CHUNK, k)
         part = jax.lax.dot_general(
             lhs[..., start:stop].astype(jnp.bfloat16),
-            rhs[start:stop].astype(jnp.bfloat16),
-            (((lhs.ndim - 1,), (0,)), ((), ())),
+            jax.lax.slice_in_dim(rhs, start, stop, axis=rhs_k_axis).astype(
+                jnp.bfloat16
+            ),
+            dims,
             preferred_element_type=jnp.float32,
         ).astype(jnp.int32)
         out = part if out is None else out + part
@@ -83,9 +85,8 @@ def _roll_block(x: jax.Array, blk: int) -> jax.Array:
     """W[..., mi, c] = x[..., (c - mi) mod 2N] for mi in [0, blk).
 
     Log-doubling construction: blk rows of the circulant of x built with
-    log2(blk) (concat, static-roll) pairs — every op is an aligned vectorized
-    copy. No gathers, no misaligned reshapes (both killed TPU throughput:
-    9.1 s and 2.4 s per 64-batch bootstrap respectively in earlier designs).
+    log2(blk) (concat, static-roll) pairs — every op is a static slice or
+    concatenation, so XLA fuses the whole build into one elementwise pass.
     """
     w = x[..., None, :]
     k = 1
@@ -126,7 +127,7 @@ def polymul_small_by_torus(d: jax.Array, t: jax.Array, d_limbs: int) -> jax.Arra
     t: uint32 [J, N]      (shared across the batch, e.g. TRGSW rows)
     Returns uint32 [..., N] = sum_j d_j * t_j  (negacyclic, mod 2^32).
     """
-    rhs = build_step_matrix(t[:, None, :])  # [1, 4, J*N, N]
+    rhs = build_step_matrix(t[:, None, :])  # [4*N, J*N]
     return polymul_small_by_torus_multi(d, rhs, d_limbs, 1)[..., 0, :]
 
 
@@ -134,21 +135,27 @@ def build_step_matrix(t: jax.Array) -> jax.Array:
     """Build the exact-convolution matmul operand for a set of torus polys.
 
     t: uint32 [J, O, N] (e.g. one bootstrapping-key step: J = 2L gadget rows,
-    O = 2 output polys a/b). Returns int8 [O, 4, J*N, N]: per (output poly o,
-    torus limb q), the stacked negacyclic circulants of the J polys, laid out
-    so one (o, q)-batched contraction over (j, m) produces all outputs.
+    O = 2 output polys a/b). Returns int8 [O*4*N, J*N]: row (o, q, c),
+    column (j, m) holds torus limb q of t_ext[j, o, (c - m) mod 2N], so ONE
+    plain 2-D contraction of the [F, J*N] digit rows against it yields every
+    (output poly, limb) product at once, with the contraction axis minor on
+    both operands (the int8 tensor-core GEMM layout) and no broadcast lhs.
 
-    The layout is chosen so the whole build is aligned copies: the limb axis
-    is moved *before* the circulant expansion (tiny transpose on [J,O,2N,4]),
-    and the circulant rows come from _roll_block doublings — so nothing ever
-    transposes or gathers the 50 MB expanded operand.
+    Rows are the circulant of the index-reversed extension y[k] =
+    t_ext[-k mod 2N] (circulant_rows: C[c, m] = y[(m - c) mod 2N]); the
+    (J, c) axis swap fuses into the build. The operand is materialised
+    behind an optimization barrier: for a single digit row XLA rewrites the
+    contraction as multiply + reduce and would otherwise fuse the whole
+    slice/concatenate build into that reduction, which the GPU compiler
+    takes 40-90 s per step program to emit.
     """
     j, o, n = t.shape
     x = negacyclic_extend(t)  # [J, O, 2N] uint32
-    xl = split_u32_limbs(x)  # [J, O, 2N, 4] int8
-    xl = xl.transpose(1, 3, 0, 2)  # [O, 4, J, 2N]
-    c = circulant_rows(xl, n)  # [O, 4, J, N, N]
-    return c.reshape(o, 4, j * n, n)
+    y = jnp.concatenate([x[..., :1], x[..., :0:-1]], axis=-1)  # x[-k mod 2N]
+    yl = split_u32_limbs(y).transpose(1, 3, 0, 2)  # [O, 4, J, 2N] int8
+    c = circulant_rows(yl, n)  # [O, 4, J, N(c), N(m)]
+    mat = c.transpose(0, 1, 3, 2, 4).reshape(o * 4 * n, j * n)
+    return jax.lax.optimization_barrier(mat)
 
 
 def polymul_small_by_torus_multi(
@@ -156,51 +163,30 @@ def polymul_small_by_torus_multi(
 ) -> jax.Array:
     """out[..., o, n] = sum_j d[..., j, :] (*) t[j, o, :]  (negacyclic, exact).
 
-    d: int32 [..., J, N]; step_matrix: int8 [O, 4, J*N, N] from
+    d: int32 [..., J, N]; step_matrix: int8 [O*4*N, J*N] from
     build_step_matrix. This is the external-product core (reference
-    trgsw.rs:77-116) recast as one (o, limb)-batched MXU contraction.
+    trgsw.rs:77-116) recast as one 2-D exact integer contraction
+    [B*dk, J*N] x [J*N, O*4*N].
     """
-    o, q4, jn, n = step_matrix.shape
-    assert o == num_out
+    n = d.shape[-1]
+    jn = step_matrix.shape[1]
+    assert step_matrix.shape[0] == num_out * 4 * n
     batch_shape = d.shape[:-2]
     lhs = split_digit_limbs(d, d_limbs)  # [..., J, N, dk]
     lhs = jnp.moveaxis(lhs, -1, -3).reshape(-1, jn)  # [F = B*dk, J*N]
-    f = lhs.shape[0]
-    if config.dot_impl == "int8":
-        lhs_b = jnp.broadcast_to(lhs, (o, q4, f, jn))
-        out = jax.lax.dot_general(
-            lhs_b,
-            step_matrix,
-            (((3,), (2,)), ((0, 1), (0, 1))),
-            preferred_element_type=jnp.int32,
-        )  # [O, 4, F, N] int32
-    else:
-        out = None
-        for start in range(0, jn, _BF16_CHUNK):
-            stop = min(start + _BF16_CHUNK, jn)
-            lhs_b = jnp.broadcast_to(
-                lhs[:, start:stop].astype(jnp.bfloat16), (o, q4, f, stop - start)
-            )
-            part = jax.lax.dot_general(
-                lhs_b,
-                step_matrix[..., start:stop, :].astype(jnp.bfloat16),
-                (((3,), (2,)), ((0, 1), (0, 1))),
-                preferred_element_type=jnp.float32,
-            ).astype(jnp.int32)
-            out = part if out is None else out + part
-    # Recombine limb products in place (sum over q and dk with 2^(8(p+q))
-    # weights, wrapping mod 2^32) — no transposed materialization of the
-    # 64 MB dot output; only the final [O, B, N] -> [B, O, N] swap moves data.
-    out = out.reshape(o, q4, *batch_shape, d_limbs, n)
-    u = jax.lax.bitcast_convert_type(out, TORUS_DTYPE)
-    acc = jnp.zeros((o, *batch_shape, n), dtype=TORUS_DTYPE)
-    for q in range(q4):
-        for p in range(d_limbs):
+    out = exact_dot_i8(lhs, step_matrix, rhs_k_axis=1)  # [F, O*4*N] int32
+    # Recombine limb products (sum over torus limb q and digit limb p with
+    # 2^(8(p+q)) weights, wrapping mod 2^32).
+    u = jax.lax.bitcast_convert_type(
+        out.reshape(*batch_shape, d_limbs, num_out, 4, n), TORUS_DTYPE
+    )
+    acc = jnp.zeros((*batch_shape, num_out, n), dtype=TORUS_DTYPE)
+    for p in range(d_limbs):
+        for q in range(4):
             s = 8 * (p + q)
-            if s >= TORUS_BITS:
-                continue
-            acc = acc + (u[:, q, ..., p, :] << jnp.uint32(s))
-    return jnp.moveaxis(acc, 0, -2)  # [..., o, n]
+            if s < TORUS_BITS:
+                acc = acc + (u[..., p, :, q, :] << jnp.uint32(s))
+    return acc
 
 
 def polymul_torus_by_binary(a: jax.Array, s: jax.Array) -> jax.Array:

@@ -1,6 +1,6 @@
 """Multi-chip parallelism: device meshes, sharded gates, TP bootstrap.
 
-The TPU-native replacement for the reference's "Railgun" CPU thread-pool
+The device-mesh replacement for the reference's "Railgun" CPU thread-pool
 abstraction (rs-tfhe parallel/mod.rs:42-76).
 """
 

@@ -1,9 +1,9 @@
-"""Device meshes and sharding placement — the TPU-native "Railgun".
+"""Device meshes and sharding placement — the device-mesh "Railgun".
 
 The reference's parallelism seam is the `Railgun` trait (rs-tfhe
 parallel/mod.rs:42-76): a pluggable `par_map` over independent ciphertexts,
-backed by a rayon thread pool. The TPU equivalent is a `jax.sharding.Mesh`
-whose `batch` axis shards the ciphertext batch over chips (data parallel, no
+backed by a rayon thread pool. Here it is a `jax.sharding.Mesh` whose
+`batch` axis shards the ciphertext batch over devices (data parallel, no
 collectives — blind rotations of independent ciphertexts never communicate,
 exactly like the reference's `batch_blind_rotate`, trgsw.rs:289-305) and
 whose optional `model` axis shards the evaluation-key contractions inside a
@@ -64,14 +64,15 @@ def replicate(tree, mesh: Mesh):
 
 
 def make_multihost_mesh(tp: int = 1) -> Mesh:
-    """Mesh over every device in a multi-host (DCN) deployment.
+    """Mesh over every device of a multi-host deployment.
 
     Call after `jax.distributed.initialize()` on each host. The batch axis
-    spans hosts: data-parallel gate batches shard across the full slice with
-    zero cross-host collectives (keys replicate once at placement); keep any
-    `model` axis within a host's chips so its psums ride ICI, which this
-    layout guarantees because the model axis is minor in the device order.
-    Single-process fallback: identical to make_mesh().
+    spans hosts: data-parallel gate batches shard across all devices with
+    zero cross-host collectives (keys replicate once at placement). The
+    `model` axis is minor in the device order, so with tp no larger than a
+    host's device count its n0 all-reduces per bootstrap stay on the host's
+    NVLink instead of the slower network between hosts. In one process it is
+    identical to make_mesh().
     """
     return make_mesh(len(jax.devices()), tp=tp)
 

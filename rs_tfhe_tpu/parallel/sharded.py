@@ -20,7 +20,8 @@ batches, the two heavy contractions inside a bootstrap are sharded over the
     sharded; partial subtracted sums are ``psum``-reduced
     (reference loop: trgsw.rs:347-356).
 
-Both collectives ride ICI; nothing ever gathers full keys to one chip.
+Both collectives are all-reduces over the `model` axis (NCCL over NVLink
+on a multi-GPU host); nothing ever gathers full keys to one device.
 """
 
 from __future__ import annotations
@@ -59,9 +60,8 @@ def _dp_gate(
         return _bootstrap(_LINEAR_FORMS[name](a_l, b_l), ck_l)
 
     # explicit shard_map (not sharding propagation): each device runs the
-    # whole bootstrap — including the fused Pallas kernel — on its local
-    # batch slice, with keys replicated. Zero collectives. check_vma=False:
-    # pallas_call outputs carry no varying-across-mesh annotations.
+    # whole bootstrap on its local batch slice, with keys replicated. Zero
+    # collectives.
     return jax.shard_map(
         shard_fn,
         mesh=mesh,
@@ -166,71 +166,32 @@ def data_parallel_lut_bootstrap(
 # ---------------------------------------------------------------------------
 
 
-def _tp_step_delta_xla(d_local, bsk_i, params):
-    """Local partial CMUX delta via the XLA circulant path (any platform,
-    any parameter set)."""
-    mat = build_step_matrix(bsk_i)  # local rows only
+def _tp_step_delta(d_local, bsk_i, params):
+    """Local partial CMUX delta via the circulant contraction (local gadget
+    rows only)."""
+    mat = build_step_matrix(bsk_i)
     return polymul_small_by_torus_multi(d_local, mat, params.digit_limbs, 2)
 
 
-def _tp_step_delta_fused(d_local, bsk_i, params):
-    """Local partial delta via the per-step Pallas kernel (ops/pallas_step):
-    the circulant expansion stays in VMEM instead of round-tripping HBM.
-    Requires digit_limbs == 1 and N % 128 == 0; the local batch pads up to
-    the 128-row f-tile (TP targets small latency-bound batches, so the pad
-    is the price of MXU-shaped tiles)."""
-    from ..ops.pallas_step import fused_external_product
-    from ..torus import split_u32_limbs
-
-    batch, rows_local, n = d_local.shape
-    from ..ops.poly import negacyclic_extend
-
-    xl = jnp.transpose(
-        split_u32_limbs(negacyclic_extend(bsk_i)), (1, 3, 0, 2)
-    )  # [2, 4, rows_local, 2N] int8
-    pad = (-batch) % 128
-    lhs = jnp.pad(
-        d_local.astype(jnp.int8).reshape(batch, rows_local * n), ((0, pad), (0, 0))
-    )
-    out = fused_external_product(lhs, xl, 2)  # [batch+pad, 2, N]
-    return out[:batch]
-
-
-def _tp_blind_rotate(ct, testvec, bsk_local, params, tp: int, impl: str = "auto"):
+def _tp_blind_rotate(ct, testvec, bsk_local, params, tp: int):
     """Blind rotation with the BSK's 2L gadget-row axis sharded over `model`.
 
     ct: uint32 [B_loc, n0+1]; bsk_local: uint32 [n0, 2L/tp, 2, N].
     Mirrors ops/blind_rotate.blind_rotate with a psum'd CMUX delta.
 
-    COST MODEL (document, not small print): this path emits ONE psum of
-    [B_loc, 2, N] per CMUX step — n0 (700) collectives per bootstrap. On an
-    ICI mesh that is ~6 MB of all-reduce per bootstrapped ciphertext at
-    production shapes, so TP only pays off for latency-bound SMALL batches
-    where the batch axis cannot fill the chips; throughput workloads should
-    always use data_parallel_gate (zero collectives).
-
-    EVIDENCE STATUS: the "TP wins at B = 1..64" result (SCALING_r03.json)
-    is PLUMBING-VALIDATED ONLY — measured on a virtual 8-device CPU mesh
-    at TEST_TINY, where collectives are memcpys. The psum-per-step cost
-    model above has never been timed against real ICI (this environment
-    exposes one physical chip); treat the crossover point as a model until
-    a multi-chip run lands. `impl` selects the
-    per-step local contraction like ops/blind_rotate does for single-chip:
-    the fused Pallas step kernel when eligible on TPU, XLA otherwise.
+    COST MODEL: this path emits ONE psum of [B_loc, 2, N] uint32 per CMUX
+    step — n0 (700) all-reduces per bootstrap, ~8 KB each at B_loc=1 and
+    N=1024. The cards of one host are joined all to all by NVLink, so each
+    all-reduce is latency-bound at small batch: TP can only pay off for
+    latency-bound SMALL batches where the batch axis cannot fill the
+    devices; throughput workloads use data_parallel_gate (zero
+    collectives). The crossover has not been measured on GPUs.
     """
     g = params.trgsw_lv1
     n0, n1 = params.n0, params.n1
     batch = ct.shape[0]
     rows_local = (2 * g.l) // tp
     row0 = jax.lax.axis_index(MODEL_AXIS) * rows_local
-
-    use_fused = (
-        impl in ("fused", "auto")
-        and params.digit_limbs == 1
-        and n1 % 128 == 0
-        and jax.devices()[0].platform == "tpu"
-    )
-    delta_fn = _tp_step_delta_fused if use_fused else _tp_step_delta_xla
 
     b_til = (2 * n1 - modswitch(ct[:, n0], params)) % (2 * n1)
     a_til = modswitch(ct[:, :n0], params)
@@ -243,7 +204,7 @@ def _tp_blind_rotate(ct, testvec, bsk_local, params, tp: int, impl: str = "auto"
         rot = monomial_rotate(acc, a_i[:, None])
         digits = gadget_decompose(rot - acc, params)  # [B, 2L, N]
         d_local = jax.lax.dynamic_slice_in_dim(digits, row0, rows_local, axis=-2)
-        delta = delta_fn(d_local, bsk_i, params)
+        delta = _tp_step_delta(d_local, bsk_i, params)
         delta = jax.lax.psum(delta, MODEL_AXIS)
         return acc + delta, None
 
@@ -284,17 +245,14 @@ def tensor_parallel_bootstrap(
     Scope (measured honestly): one psum per CMUX step = n0 collectives per
     bootstrap; use for latency-bound batches too small to fill the mesh's
     batch axis. data_parallel_gate is the throughput path."""
-    from ..config import config
-
     params = ck.params
     tp = mesh.shape[MODEL_AXIS]
     g = params.trgsw_lv1
     if (2 * g.l) % tp or params.n1 % tp:
         raise ValueError(f"tp={tp} must divide 2L={2 * g.l} and N={params.n1}")
-    impl = config.step_impl
 
     def fn(ct_l, testvec, bsk_l, ksk_l):
-        acc = _tp_blind_rotate(ct_l, testvec, bsk_l, params, tp, impl)
+        acc = _tp_blind_rotate(ct_l, testvec, bsk_l, params, tp)
         lv1 = sample_extract(acc, 0)
         return _tp_key_switch(lv1, ksk_l, params, tp)
 

@@ -63,9 +63,9 @@ class TfheParams:
     #: error is uniform noise ~2^-(32-rb) — at rb=8 its std (~1.7e-8) is
     #: comparable to bsk_alpha (2e-8) and is accounted for in utils/noise.py,
     #: where the boolean sets' margins still hold (~14 sigma). Security (an
-    #: LWE sample with slightly MORE noise) and correctness both hold —
-    #: while the zeroed low limb planes let the fused kernel skip
-    #: rb/8 of its int8 MXU passes (ops/pallas_blind_rotate.py drop_limbs).
+    #: LWE sample with slightly MORE noise) and correctness both hold, and
+    #: the lowest rb/8 torus limb planes of the key are zero (a contraction
+    #: that skips them does rb/8 fewer int8 passes; not yet exploited).
     #: No reference analog (the reference's f64 FFT cannot exploit it).
     bsk_round_bits: int = 0
 
@@ -275,8 +275,8 @@ SECURITY_UINT8 = TfheParams(
 #:      decomposition (decomposition_round_bit) — the reference's uncentered
 #:      decomposition at these settings would sit at ~4.5 sigma (unsafe),
 #:      which is presumably why it ships L=3;
-#:   2. BSK rounded to 24 torus bits (bsk_round_bits=8): the zero low limb
-#:      plane drops 25% of the fused kernel's int8 MXU passes.
+#:   2. BSK rounded to 24 torus bits (bsk_round_bits=8): the low limb plane
+#:      is zero, so a contraction can skip 25% of its int8 passes.
 #: Noise model (utils/noise.py): bootstrap std 4.3e-3 predicted, ~14 sigma
 #: of the boolean gate margin, p_fail ~ 3e-19 per gate. Round-1 measured
 #: (without rounding) 3.45e-3 vs 3.67e-3 predicted — the model runs ~6%

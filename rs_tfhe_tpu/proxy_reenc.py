@@ -6,7 +6,7 @@ Reference: rs-tfhe proxy_reenc.rs. Both modes are provided:
     of zero, public-key encryption is a random +/- subset sum + fresh noise).
 
 Re-encryption itself is the same digit-decompose-and-subtract shape as
-identity key switching and reuses the one-hot MXU contraction
+identity key switching and reuses the one-hot int8 contraction
 (ops/keyswitch.digit_select_subtract) — batched over ciphertexts.
 """
 
@@ -89,7 +89,7 @@ class PublicKeyLv0:
 @dataclasses.dataclass(frozen=True)
 class ProxyReencryptionKey:
     """Decomposed encryptions of the source key under the target key
-    (reference proxy_reenc.rs:224-421), stored limb-split for the MXU."""
+    (reference proxy_reenc.rs:224-421), stored limb-split for the int8 contraction."""
 
     #: planar-padded layout (tlwe.lwe_encrypt_rows_limbs contract)
     table_limbs: jax.Array  # int8 [n0 * t * base, 4*lane_pad(n0+1)]

@@ -105,21 +105,15 @@ def lwe_encrypt_rows_limbs(
     (optionally with `zero_mask` rows zeroed); only the storage layout of
     the limb split differs from split_u32_limbs' interleaved [..., c*4+q].
 
-    Why this shape: the table is consumed by one-hot MXU contractions
+    Why this shape: the table is consumed by one-hot int8 contractions
     (ops/keyswitch.digit_select_sum) where extra zero columns are free, and
-    the *aligned planar* build is what keeps XLA compile time sane on TPU.
-    The monolithic interleaved pipeline at KSK shapes [36864, 700] costs
-    minutes of compile (scripts/diag_ksk_compile.py: mask 69 s, dot+concat
-    387 s, limb interleave 289 s — the whole of the round-2 "368 s cold
-    keygen" wall), and even scan-chunked it keeps paying for the misaligned
-    701-wide concat (60 s) and the [cs, 701, 4] -> [cs, 2804] lane
-    relayout (236 s). This version generates the mask per chunk by
-    counter-exact threefry (torus.threefry2x32_bits), places the body by a
-    one-hot multiply-add instead of a concat, and stacks limb PLANES on a
-    major axis — measured 6.5 s cold compile on the same hardware
-    (scan_padded probe), a 45x reduction, with the very same encrypted
-    values. Serves the key-switching key (key.gen_key_switching_key) and
-    proxy re-keys (proxy_reenc).
+    the chunked planar build keeps every fusion small: the mask is
+    generated per row chunk by counter-exact threefry
+    (torus.threefry2x32_bits), the body is placed by a one-hot
+    multiply-add instead of a 701-wide concat, and the limb PLANES stack on
+    a major axis instead of an interleaving relayout — with the very same
+    encrypted values as the monolithic pipeline. Serves the key-switching
+    key (key.gen_key_switching_key) and proxy re-keys (proxy_reenc).
     """
     n = s.shape[0]
     (rows,) = mu.shape

@@ -59,7 +59,7 @@ def estimate(params: TfheParams, mb_group: int = 1) -> NoiseEstimate:
     coefficient is uniform in +/-eps with eps = 2^-(l*bgbit+1), variance
     eps^2/3, and carries NO bias — so there is no deterministic
     bias-times-secret ramp (the reference's truncating decomposition has
-    one; see NOTES-PERF.md). Digits are ~uniform in [-Bg/2, Bg/2), so
+    one; see NOTES-PERF.md in git history). Digits are ~uniform in [-Bg/2, Bg/2), so
     their mean square is Bg^2/12 rather than the worst-case (Bg/2)^2.
     Cross-validated against measure_phase_noise: SECURITY_128_BIT_FAST
     predicts 3.7e-3 bootstrap std vs 3.45e-3 measured (params.py), and
@@ -209,7 +209,7 @@ def mb_lut_route_ok(params: TfheParams) -> bool:
     rotation noise dominates its budget), `bootstrap_with_testvec` refuses
     the mb route and B<=2 LUT calls stay on the standard commuted kernel;
     boolean gates keep their own separately-published mb margins
-    (NOTES-PERF.md: FAST 7.4 sigma, strict 12.7 sigma). Closes VERDICT
+    (NOTES-PERF.md in git history: FAST 7.4 sigma, strict 12.7 sigma). Closes VERDICT
     round-4 missing item 1."""
     v_std = estimate(params).bootstrap_out_std ** 2
     v_mb = estimate(params, mb_group=2).bootstrap_out_std ** 2

@@ -60,8 +60,7 @@ def load_secret_key(path) -> SecretKey:
 
 
 def save_cloud_key(path, ck: CloudKey, seeded: bool = False) -> None:
-    """Full: ~100 MB compressed at SECURITY_128_BIT (bsk_packed/bsk_vecs are
-    never stored — both are derived from bsk and rebuilt at load).
+    """Full: ~100 MB compressed at SECURITY_128_BIT.
 
     seeded=True stores only the generate-key seed + the ciphertext BODIES
     (~9x smaller): key masks are pseudorandom streams replayed from the
@@ -175,12 +174,6 @@ def load_cloud_key(path) -> CloudKey:
         _check(z, kind if kind == "cloud-seeded" else "cloud")
         params = params_from_dict(json.loads(str(z["params"])))
         from ..key import gen_testvec
-        from ..ops.pallas_blind_rotate import (
-            prepare_bsk_limbs,
-            prepare_bsk_mb_vecs,
-            prepare_bsk_vecs,
-            small_param_ok,
-        )
 
         if kind == "cloud-seeded":
             ksk_limbs, bsk, bsk_mb = _rebuild_seeded(z, params)
@@ -193,25 +186,13 @@ def load_cloud_key(path) -> CloudKey:
             testvec = jnp.asarray(z["testvec"])
             gen_seed = None
 
-        drop = params.bsk_round_bits // 8
         return CloudKey(
             testvec=testvec,
             ksk_limbs=ksk_limbs,
             bsk=bsk,
             params=params,
-            bsk_packed=prepare_bsk_limbs(bsk),
-            bsk_vecs=(
-                prepare_bsk_vecs(bsk, drop_limbs=drop)
-                if small_param_ok(params)
-                else None
-            ),
             gen_seed=gen_seed,
             bsk_mb=bsk_mb,
-            bsk_mb_vecs=(
-                prepare_bsk_mb_vecs(bsk_mb, drop_limbs=drop)
-                if bsk_mb is not None and small_param_ok(params)
-                else None
-            ),
         )
 
 

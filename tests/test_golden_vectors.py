@@ -1,4 +1,4 @@
-"""Fixed-seed golden vectors of our own pipeline (VERDICT round-1 item 3).
+"""Fixed-seed golden vectors of our own pipeline (review round 1 item 3).
 
 The vectors in tests/vectors/golden_tiny.npz were generated by
 scripts/gen_golden_vectors.py at a pinned set of jax.random seeds. Any
@@ -57,8 +57,7 @@ def test_keygen_and_encrypt(golden, state):
 def test_blind_rotate_extract_keyswitch(golden, state):
     p, sk, ck, a, b = state
     lin = gates._nand_lin(a, b)
-    acc = blind_rotate(lin, ck.testvec, ck.bsk, p,
-                       bsk_packed=ck.bsk_packed)
+    acc = blind_rotate(lin, ck.testvec, ck.bsk, p)
     np.testing.assert_array_equal(np.asarray(acc), golden["blind_rotate_out"])
     lv1 = sample_extract(acc)
     np.testing.assert_array_equal(np.asarray(lv1), golden["extract_out"])

@@ -6,8 +6,8 @@ TEST_TINY's N=64 ring cannot hold modulus-32 LUT margins (the mod-switch
 floor alone is ~1 sigma with the corrected 1/(4m) decision distance), so
 these tests run a dedicated N=512 tiny set (~6.7 sigma on the 8-summand
 columns) — deterministic enough for CI. Production use:
-SECURITY_128_BIT_NIBBLE (6.5 sigma certified, validated on TPU by
-scripts/tpu_validation.py)."""
+SECURITY_128_BIT_NIBBLE (6.5 sigma certified; the production-size run is
+the golden phase of chip_smoke.py)."""
 
 import jax
 import numpy as np
@@ -93,7 +93,7 @@ def test_mul_radix_16bit(mkeys, rng):
 
 def test_mul_radix_multi_value_matches(mkeys, rng):
     """multi_value=True: stage-2/3 test-vector pairs factored through one
-    blind rotation each (VERDICT r4 item 4) — decode-identical products."""
+    blind rotation each (review round 4 item 4) — decode-identical products."""
     sk, ck = mkeys
     xs = rng.integers(0, 256, 4)
     ys = rng.integers(0, 256, 4)

@@ -3,9 +3,8 @@
 New capability beyond the reference (its rotation is bit-serial,
 trgsw.rs:209-223): one external product against a word-domain combination
 of four pair-indicator TRGSWs advances the chain by TWO mask elements,
-halving the sequential CMUX chain — the small-batch latency lever
-(NOTES-PERF.md). These tests pin the XLA path on CPU; the Mosaic kernel's
-bit-exactness vs this path lives in test_pallas_kernels.py.
+halving the sequential CMUX chain — the small-batch latency lever.
+These tests pin the XLA path on CPU.
 """
 
 import jax
@@ -15,7 +14,7 @@ import pytest
 
 from rs_tfhe_tpu import tlwe
 from rs_tfhe_tpu.key import CloudKey, SecretKey
-from rs_tfhe_tpu.ops.blind_rotate import _mb_k_rows, blind_rotate_mb, modswitch
+from rs_tfhe_tpu.ops.blind_rotate import blind_rotate_mb, modswitch
 from rs_tfhe_tpu.ops.extract import sample_extract
 from rs_tfhe_tpu.ops.keyswitch import identity_key_switch
 from rs_tfhe_tpu.torus import f64_to_torus
@@ -31,8 +30,7 @@ def ck_mb(sk):
 
 
 def _bootstrap_mb(ct, ck):
-    acc = blind_rotate_mb(ct, ck.testvec, ck.bsk_mb, ck.params,
-                          bsk_mb_vecs=ck.bsk_mb_vecs)
+    acc = blind_rotate_mb(ct, ck.testvec, ck.bsk_mb, ck.params)
     return identity_key_switch(sample_extract(acc, 0), ck.ksk_limbs, ck.params)
 
 
@@ -48,8 +46,9 @@ def test_mb_keygen_preserves_standard_streams(sk, ck, ck_mb):
     assert ck_mb.bsk_mb.shape == (
         ck_mb.params.n0 // 2, 4, 2 * g2.l, 2, ck_mb.params.n1
     )
-    # TEST_TINY (N=64) is below the Mosaic lane width: no kernel operand
-    assert ck_mb.bsk_mb_vecs is None
+    # the key carries only bsk_mb beside the standard material: no
+    # derived layouts
+    assert not hasattr(ck_mb, "bsk_mb_vecs")
 
 
 def test_mb_gate_truth_table(tiny, sk, ck_mb):
@@ -110,28 +109,6 @@ def test_mb_noise_within_model(tiny, sk, ck_mb, rng):
     assert noise.std() < 2.0 * est.bootstrap_out_std + 1e-9
     # and the model itself orders correctly: mb is noisier than standard
     assert est.bootstrap_out_std >= estimate(tiny).bootstrap_out_std
-
-
-def test_mb_k_rows_layout(tiny):
-    """Kernel-side exponent table: [G, B, 4R, 1], pattern-major
-    [0, a1, a2, (a1+a2) mod 2N], each repeated R times."""
-    n1 = tiny.n1
-    g, batch = tiny.n0 // 2, 3
-    rng = np.random.default_rng(1)
-    a1 = jnp.asarray(rng.integers(0, 2 * n1, (batch, g)), dtype=jnp.int32)
-    a2 = jnp.asarray(rng.integers(0, 2 * n1, (batch, g)), dtype=jnp.int32)
-    r = 8
-    rows = np.asarray(_mb_k_rows(a1, a2, tiny, r))
-    assert rows.shape == (g, batch, 4 * r, 1)
-    a1n, a2n = np.asarray(a1), np.asarray(a2)
-    for gi in (0, g - 1):
-        for b in (0, batch - 1):
-            got = rows[gi, b, :, 0]
-            expect = np.repeat(
-                [0, a1n[b, gi], a2n[b, gi], (a1n[b, gi] + a2n[b, gi]) % (2 * n1)],
-                r,
-            )
-            np.testing.assert_array_equal(got, expect)
 
 
 def test_mb_key_routes_gates_at_small_batch(tiny, sk, ck_mb):

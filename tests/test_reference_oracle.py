@@ -130,15 +130,14 @@ def test_keyswitch_exact_parity(keys, rng):
 
 
 def test_blind_rotate_matches_exact_oracle(keys, rng):
-    """Our batched TPU-style blind rotation == the reference loop run with
+    """Our batched blind rotation == the reference loop run with
     our conventions (centered decomposition, exact negation) — proving the
-    MXU circulant path computes the same integers as the schoolbook."""
+    circulant path computes the same integers as the schoolbook."""
     sk, ck = keys
     p = TEST_TINY
     ct = rng.integers(0, 1 << 32, (2, p.n0 + 1), dtype=np.uint32)
     ours = np.asarray(
-        blind_rotate(jnp.asarray(ct), ck.testvec, ck.bsk, p,
-                     bsk_packed=ck.bsk_packed)
+        blind_rotate(jnp.asarray(ct), ck.testvec, ck.bsk, p)
     )
     tv = np.asarray(ck.testvec)
     bsk = np.asarray(ck.bsk)
